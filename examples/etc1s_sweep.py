@@ -10,7 +10,7 @@ spot numbers), re-encode with our ETC1S encoder, and record
 
 Appends one JSON line per segment to `docs/etc1s_sweep.jsonl` (resumable)
 and prints a summary. Runs on whatever JAX backend is up
-(UVT_PLATFORM=cpu forces host).
+(JAX_PLATFORMS=cpu forces host).
 """
 
 import json
@@ -21,11 +21,6 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-if os.environ.get("UVT_PLATFORM") == "cpu":
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 from uvol_tpu.codecs.basis.etc1s_encode import encode_ktx2_etc1s
 from uvol_tpu.codecs.basis.transcoder import transcode_ktx2_etc1s

@@ -2,7 +2,7 @@
 
 Counterpart of the reference's motion visualizer
 (deprecated/encoder/dev/Visualize_Motion.py:12-50): fit degree-4
-trajectories over a frame window (models/trajectory.py, the TPU-side
+trajectories over a frame window (models/trajectory.py, the device-side
 polyfit of deprecated/encoder/dev/encoder.py:112) and draw a 3-D sample
 of the vertex paths. Headless (Agg backend).
 

@@ -49,8 +49,8 @@ def test_geometry_codec_mesh_byte_identical():
     faces = [np.stack([k, k + 1, k + 2], 1).astype(np.int32) % n] * f
     frames = GeometryFrameSet(pos, uv, counts, faces)
 
-    single = GeometrySequenceCodec(use_pallas=False)
-    sharded = GeometrySequenceCodec(use_pallas=False, mesh=make_mesh(8))
+    single = GeometrySequenceCodec()
+    sharded = GeometrySequenceCodec(mesh=make_mesh(8))
     blobs_1 = single.encode(frames)
     blobs_8 = sharded.encode(frames)
     assert [bytes(a) for a in blobs_1] == [bytes(a) for a in blobs_8]
@@ -75,9 +75,9 @@ def test_texture_codec_mesh_byte_identical():
 
     r = np.random.default_rng(6)
     frames = r.integers(0, 256, (5, 32, 32, 3)).astype(np.uint8)  # ragged 5/8
-    single = TextureSequenceCodec(sequence_size=5, use_pallas=False)
+    single = TextureSequenceCodec(sequence_size=5)
     sharded = TextureSequenceCodec(
-        sequence_size=5, use_pallas=False, mesh=make_mesh(8)
+        sequence_size=5, mesh=make_mesh(8)
     )
     blob_1 = single.encode_segment(frames)
     blob_8 = sharded.encode_segment(frames)

@@ -7,7 +7,9 @@ from uvol_tpu.codecs.basis.etc import (
     encode_etc1_blocks,
     image_to_blocks,
     pack_etc1_payload,
+    pack_words2,
     unpack_etc1_payload,
+    unpack_words2,
 )
 from uvol_tpu.containers.ktx2 import read_ktx2
 from uvol_tpu.models.sequence import (
@@ -134,7 +136,7 @@ def test_encode_bucketed_ragged_matches_and_saves_padding():
         .astype(np.int32)
         for c in counts
     ]
-    codec = GeometrySequenceCodec(use_pallas=False)
+    codec = GeometrySequenceCodec()
     got = codec.encode_bucketed(positions, uvs, faces)
 
     for i, c in enumerate(counts):
@@ -150,3 +152,35 @@ def test_encode_bucketed_ragged_matches_and_saves_padding():
     bucketed = sum(len(b) * int(counts[b].max()) for b in buckets)
     single = len(counts) * int(counts.max())
     assert bucketed < single * 0.7, (bucketed, single)
+
+
+@pytest.mark.parametrize("width", [128, 40, 136])  # nbx = 32, 10, 34
+def test_texture_codec_words_equal_per_block_encode(width):
+    """The codec's [2, L*nb] device word planes hold exactly the words of
+    the per-block encoder, frame-major, whatever the row width."""
+    import jax.numpy as jnp
+
+    r = np.random.default_rng(width)
+    frames = r.integers(0, 256, (3, 8, width, 3)).astype(np.uint8)
+    codec = TextureSequenceCodec(sequence_size=3)
+    words2 = np.asarray(codec._encode(jnp.asarray(frames)))
+    want = np.stack(
+        [np.asarray(encode_etc1_blocks(image_to_blocks(f))) for f in frames]
+    )  # [L, nb, 2] uint32
+    np.testing.assert_array_equal(pack_words2(words2, 3), want)
+    blob = codec.encode_segment(frames)
+    np.testing.assert_array_equal(
+        codec.decode_segment(read_ktx2(blob)),
+        np.stack([blocks_to_image(decode_etc1_blocks(w), 8, width) for w in want]),
+    )
+
+
+def test_pack_words2_roundtrip():
+    r = np.random.default_rng(11)
+    words = r.integers(0, 2**32, (4, 37, 2), dtype=np.uint64).astype(np.uint32)
+    planes = unpack_words2(words)
+    assert planes.shape == (2, 4 * 37) and planes.dtype == np.int32
+    np.testing.assert_array_equal(planes[1, 37], words[1, 0, 1].astype(np.int32))
+    back = pack_words2(planes, 4)
+    assert back.dtype == np.uint32 and back.flags.c_contiguous
+    np.testing.assert_array_equal(back, words)

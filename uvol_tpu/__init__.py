@@ -1,4 +1,4 @@
-"""uvol_tpu — a TPU-native framework for 4D volumetric video.
+"""uvol_tpu — a JAX framework for 4D volumetric video.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 EtherealEngine/Universal-Volumetric (UVOL): a compressed interchange format,

@@ -1,4 +1,4 @@
-"""ETC1 block codec (JAX, batched) — the TPU-native texture encode path.
+"""ETC1 block codec (JAX, batched) — the device texture encode path.
 
 The reference consumes compressed textures either as KTX2/Basis or as raw
 `etc2` payloads uploaded directly (src/V2/player.ts:338-356,454-470 with
@@ -7,8 +7,8 @@ produces data the reference player's `etc2` path can consume as-is.
 
 Everything is expressed as dense batched array math over [B, 4, 4, 3]
 blocks: modifier-table search is a two-pass scheme (linear ranking +
-exact top-2 refine, `_best_table_and_codes`) that XLA maps onto the
-VPU/MXU; no per-block Python.
+exact top-2 refine, `_best_table_and_codes`) that XLA fuses into a few
+elementwise passes; no per-block Python.
 
 Wire format per block: 64 bits, big-endian (two u32 words), per the
 Khronos ETC1 spec: differential/individual base colors + 3-bit modifier
@@ -57,8 +57,7 @@ def _extend4(c: Array) -> Array:
 
 
 #: pass-1 mask sentinel — exceeds any possible subblock error total
-#: (8 pixels x (K + 2*m*G) < 2^23) and is exactly representable in f32,
-#: so the int32 and f32 (Pallas) implementations rank identically
+#: (8 pixels x (K + 2*m*G) < 2^23)
 _RANK_MASK = np.int32(1 << 30)
 
 
@@ -78,9 +77,8 @@ def _best_table_and_codes(
         per-pixel best codes), keeping the better; ties keep the
         pass-1 order. Measured on real liam texture content this is
         within 0.03 dB of the exhaustive search at ~2x the throughput
-        (99.8% of blocks identical); tests/test_basis quality gates and
-        the Pallas kernel (etc_pallas.py) implement the same two-pass,
-        so parity is bit-exact.
+        (99.8% of blocks identical); tests/test_basis quality gates lock
+        it.
 
     Returns (table_idx [...], codes [..., 8], err [...]).
     """
@@ -204,8 +202,8 @@ def encode_etc1_blocks(blocks: Array) -> Array:
 
 
 def _select8(table: Array, vals) -> Array:
-    """Arithmetic 8-way table select from the bits of `table` — TPU
-    gathers from tiny tables lower badly; three levels of where don't."""
+    """Arithmetic 8-way table select from the bits of `table`: three
+    levels of where in place of a gather from a tiny table."""
     b0 = (table & 1) == 1
     b1 = ((table >> 1) & 1) == 1
     b2 = ((table >> 2) & 1) == 1
@@ -220,9 +218,8 @@ def decode_etc1_blocks(words: Array) -> Array:
 
     Gather/scatter-free formulation: the 8x2 modifier table is an
     arithmetic bit select and the column-major pixel scatter is a
-    reshape+transpose — ~16x faster than the round-1 gather version on a
-    v5e chip at identical output (parity-locked by the encode roundtrip
-    tests and the BasisLZ golden transcodes)."""
+    reshape+transpose (parity-locked by the encode roundtrip tests and the
+    BasisLZ golden transcodes)."""
     w1 = words[:, 0].astype(jnp.uint32)
     w2 = words[:, 1].astype(jnp.uint32)
     diff = (w1 >> 1) & 1
@@ -283,3 +280,15 @@ def pack_etc1_payload(words: np.ndarray) -> bytes:
 
 def unpack_etc1_payload(data: bytes) -> np.ndarray:
     return np.frombuffer(data, dtype=">u4").astype(np.uint32).reshape(-1, 2)
+
+
+def pack_words2(words2, f: int) -> np.ndarray:
+    """Device [2, F*nb] int32 word planes -> host wire [F, nb, 2] uint32."""
+    a = np.asarray(words2).astype(np.uint32)  # [2, F*nb]
+    return np.ascontiguousarray(a.reshape(2, f, -1).transpose(1, 2, 0))
+
+
+def unpack_words2(words) -> np.ndarray:
+    """Host wire [F, nb, 2] uint32 -> device-layout [2, F*nb] int32."""
+    a = np.asarray(words, np.uint32).transpose(2, 0, 1).reshape(2, -1)
+    return np.ascontiguousarray(a).astype(np.int32)

@@ -213,7 +213,7 @@ class EndpointList:
     transcode table builds stay vectorized. Endpoint objects are
     materialized lazily — the hot transcode paths only touch the
     arrays, and eagerly building ~1.5k dataclass objects per segment
-    measured ~0.5 ms/frame in the playback profile."""
+    showed up in the playback profile."""
 
     def __init__(self, color5_arr: np.ndarray, inten_arr: np.ndarray):
         self.color5_arr = color5_arr
@@ -579,8 +579,8 @@ def etc1_word_tables(
     """Per-palette-entry ETC1 word tables (word1_of [E], word2_of [S]).
 
     Palettes are per-segment globals, so sequence transcoders build
-    these once and reuse them for every layer (the rebuild measured
-    ~0.6 ms/frame in the playback profile)."""
+    these once and reuse them for every layer (a per-layer rebuild
+    showed up in the playback profile)."""
     color5, inten5 = _endpoint_arrays(endpoints)
     base5 = color5.astype(np.uint32)  # [E,3]
     inten = inten5.astype(np.uint32)

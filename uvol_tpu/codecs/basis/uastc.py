@@ -596,9 +596,9 @@ def _encode_mode_blocks(
 
 
 # ---------------------------------------------------------------------------
-# Device (TPU/XLA) encode path — the fit, quantization and exact integer
+# Device (XLA) encode path — the fit, quantization and exact integer
 # reconstruction error for every candidate mode run as ONE jitted program
-# over the whole block batch (MXU/VPU-friendly: min/max/matvec reductions);
+# over the whole block batch (min/max/matvec reductions);
 # the host only packs the winning mode's bits. SURVEY §7 step 6's "block
 # encoders as device kernels" applied to the UASTC profile.
 # ---------------------------------------------------------------------------

@@ -222,8 +222,8 @@ def _edgebreaker_traverse(ct: EncoderCornerTable) -> _Traversal:
     if res is not None:
         symbols_a, corners_a, sf_a, (s_src, s_id, s_edge), initc, starts, nss = res
         return _Traversal(
-            # ndarrays, not lists: .tolist() + re-asarray cost ~5 ms per
-            # liam frame; every consumer is ndarray-compatible
+            # ndarrays, not lists: .tolist() + re-asarray costs a copy
+            # per liam frame; every consumer is ndarray-compatible
             symbols=symbols_a,
             symbol_corners=corners_a,
             start_face_bits=sf_a,
@@ -592,8 +592,8 @@ class _TexCoordsPortableEncoder:
             )
             if res is not None:
                 corr, orients = res
-                # keep the ndarray: per-element list conversion was ~4 ms
-                # per liam frame on the 1-core bench host
+                # keep the ndarray: per-element list conversion costs
+                # milliseconds per liam frame
                 self.orientations = orients.astype(bool)
                 return corr, wrap
 
@@ -1145,7 +1145,7 @@ def encode_drc(
         # valence contexts: bucket symbols by the replay-recorded context;
         # the decoder consumes each bucket back-to-front, so store reverse
         # decode order (== encode order within the bucket) — vectorized
-        # (the per-symbol append loop was ~10 ms/frame on liam)
+        # (in place of a per-symbol append loop)
         top2idx = np.zeros(8, np.uint32)
         for t, i in TOPOLOGY_TO_SYMBOL_IDX.items():
             top2idx[t] = i

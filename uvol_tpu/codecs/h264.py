@@ -141,8 +141,8 @@ def _escape(rbsp: bytes) -> bytes:
 
 
 def _unescape(ebsp: bytes) -> bytes:
-    """Strip emulation-prevention 0x03 bytes (vectorized; the byte-loop
-    ran ~40 ms/frame at 1024² — 2/3 of the whole decode glue).
+    """Strip emulation-prevention 0x03 bytes (vectorized; a byte loop
+    dominated the decode glue at 1024²).
 
     Equivalence with the sequential zero-counter form: a removed byte is
     always 0x03 (never 0x00), so it can never be part of a later

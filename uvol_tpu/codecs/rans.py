@@ -15,7 +15,7 @@ decode path and must therefore speak the same wire format):
 
 Python reference implementation — bit-exact oracle for tests and for the
 C++ hot path (`uvol_tpu/native`). Throughput-critical decode is batched
-per frame across CPU workers / moved to native; TPU work stays in ops/.
+per frame across CPU workers / moved to native; device work stays in ops/.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ UVOL 1.0 carries its texture stream as an MP4 video with a binary frame
 counter baked into the bottom pixel rows (reference:
 deprecated/README.md:63, example/texture_encoder.py — which shells out to
 ffmpeg for H.264). No H.264 codec exists in this environment, so the
-TPU-native build stores **Motion-JPEG** samples ('jpeg' VisualSampleEntry)
+This build stores **Motion-JPEG** samples ('jpeg' VisualSampleEntry)
 — the container layout (moov/trak/stbl indexing, chunk offsets) is exactly
 ISO/IEC 14496-12, and the codec substitution is explicit in the sample
 entry fourcc rather than a mislabeled stream.

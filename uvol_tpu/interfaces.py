@@ -1,6 +1,6 @@
 """Manifest schemas, play modes, and format tables.
 
-TPU-native re-design of the reference's manifest/type surface
+Re-design of the reference's manifest/type surface
 (`/root/reference/src/Interfaces.ts:1-169`). The JSON wire formats are
 preserved exactly (they are the public API boundary); the in-memory
 representation is Python dataclasses with strict validation, because the

@@ -282,7 +282,7 @@ class Mp4VideoTexture:
         ONLY the counter strip to RGB (the strip is row/column-aligned
         to the 2×2 chroma grid whenever the strip height and width are
         even, so nearest-upsampled chroma is local: strip conversion is
-        value-exact vs full-frame yuv420_to_rgb). Saves the ~7 ms/frame
+        value-exact vs full-frame yuv420_to_rgb). Saves the
         full-frame color convert at 1024² on the counter-sync path."""
         i = self.track.frame_at(self.current_time)
         strip_h = max(encoder_window_size // 2, 1)

@@ -1,10 +1,10 @@
-"""Texture codebook learning (ETC1S-style global palettes) on the MXU.
+"""Texture codebook learning (ETC1S-style global palettes) on device.
 
 The reference's ETC1S path relies on basisu's global endpoint/selector
 codebooks (scripts/Encoder.py:286-298 → .ktx2 with BasisLZ global data).
 Building such codebooks is a clustering problem (SURVEY.md §7 hard part
 (c)); here it is a batched k-means whose assignment step is a single
-matmul (MXU) and whose update step reduces over the frame axis with
+matmul and whose update step reduces over the frame axis with
 `psum` — the canonical dp-over-frames collective pattern for this
 framework's training-style workloads.
 """
@@ -26,7 +26,7 @@ Array = jax.Array
 def kmeans_assign(blocks: Array, codebook: Array) -> Array:
     """blocks [B, D], codebook [K, D] → assignments [B] (argmin L2).
 
-    Distance via the matmul identity so the heavy term runs on the MXU.
+    Distance via the matmul identity so the heavy term is one matmul.
     """
     dots = jnp.dot(
         blocks.astype(jnp.bfloat16),
@@ -49,7 +49,7 @@ def kmeans_update(
     onehot = jax.nn.one_hot(assign, k, dtype=jnp.float32)  # [B, K]
     sums = jnp.dot(
         onehot.T, blocks.astype(jnp.float32), preferred_element_type=jnp.float32
-    )  # [K, D] — MXU
+    )  # [K, D]
     counts = jnp.sum(onehot, axis=0)  # [K]
     chosen = codebook.astype(jnp.float32)[assign]
     distortion = jnp.sum((blocks.astype(jnp.float32) - chosen) ** 2)
@@ -69,7 +69,7 @@ def make_sharded_train_step(mesh: Mesh):
     """jit-compiled training step: frames sharded, codebook replicated.
 
     This is the full multi-chip "training step" shape of the framework:
-    per-device assignment + matmul reduction, `psum` over ICI, replicated
+    per-device assignment + matmul reduction, `psum` across devices, replicated
     parameter update.
     """
 

@@ -1,6 +1,6 @@
 """Point-cloud sequence codec (Morton-ordered delta coding).
 
-TPU-native equivalent of the reference's point-cloud path: Corto's
+Device-side equivalent of the reference's point-cloud path: Corto's
 encodePointCloud sorts points by Morton/ZPoint order then delta-codes
 (deprecated/unity/Assets/uvol/src/encoder.cpp:238-293, zpoint.h; JS decode
 at src/lib/corto.ts:84). Here the Morton sort, quantization, and deltas are

@@ -1,6 +1,6 @@
 """Polynomial-trajectory compression for fixed-topology frame groups.
 
-TPU-native re-design of the reference's experimental encoder
+Device-side re-design of the reference's experimental encoder
 (deprecated/encoder/dev/encoder.py:30-366): frames with identical vertex
 count are grouped and each vertex's (x, y, z) trajectory over the group is
 fit with a degree-4 polynomial; the mesh is then stored once plus 15
@@ -9,7 +9,7 @@ attributes consumed by its custom corto fork, main.cpp:189-202).
 
 The reference fits with one `np.polyfit` call per vertex per axis
 (encoder.py:112 — O(N) Python loop); here the whole group is ONE batched
-least-squares solve on the MXU: the Vandermonde normal equations are shared
+least-squares solve on device: the Vandermonde normal equations are shared
 across all vertices, so coefficients = solve(VᵀV, Vᵀ·positions) with
 positions [frames, N·3] — a single matmul pair.
 """
@@ -40,13 +40,14 @@ class TrajectoryGroup:
 
 
 def _vty(positions: Array, degree: int) -> Array:
-    """The only big matmul of the fit: Vᵀ·y, [D+1, F] × [F, N·3] on the MXU."""
+    """The only big matmul of the fit: Vᵀ·y, [D+1, F] × [F, N·3]."""
     f, n, c = positions.shape
     t = jnp.linspace(0.0, 1.0, f)
     vand = jnp.stack([t**k for k in range(degree + 1)], axis=1)  # [F, D+1]
     y = positions.reshape(f, n * c)
-    # HIGHEST precision: TPU's default f32 matmul uses bf16 passes, which
-    # costs ~3 digits — too lossy for the normal-equation RHS
+    # HIGHEST precision: a default-precision f32 matmul may run in bf16
+    # passes or TF32, which costs ~3 digits — too lossy for the
+    # normal-equation RHS
     return jnp.dot(
         vand.T, y,
         preferred_element_type=jnp.float32,

@@ -43,8 +43,8 @@ def _tune_malloc() -> None:
     default M_MMAP_THRESHOLD (128 KB, dynamically adjusted) sends most
     of them to mmap, so every frame pays thousands of page faults +
     munmap TLB shootdowns. Raising the mmap and trim thresholds makes
-    frame N+1 reuse frame N's pages: measured 24 -> 15-20 ms/frame on
-    the liam corpus (interleaved in-process A/B).
+    frame N+1 reuse frame N's pages (an interleaved in-process A/B on
+    the liam corpus decoded faster with it).
 
     The threshold value matters at scale (round 5): 64 MB keeps even
     whole decoded texture segments (~21 MB each) on the brk heap, and

@@ -5,7 +5,7 @@
 // the reference's src/lib/corto.ts + deprecated/encoder/dev/src/) is
 // dominated by inherently sequential per-vertex/per-face loops: the CLER
 // front machine, the log/bit value streams and the delta integration. These
-// are host serialization work, not TPU math, so they live here; the Python
+// are host serialization work, not device math, so they live here; the Python
 // modules remain the bit-exact reference implementations and fall back
 // automatically when no compiler is present.
 //

@@ -2430,8 +2430,8 @@ extern "C" int uvt_eb_encode_maps(
 // Upload bit-packer (models/drc_device.py _pack_host): flat non-negative
 // int32 values -> uint8 wire at 8/10/12/16/32-bit granularity. One pass,
 // no temporaries — replaces an int64 astype + ~8 full-array numpy ops per
-// window in the wire->device pipeline (the packing ran on the uploader
-// thread of a 1-core host, serializing against the wire decode).
+// window in the wire->device pipeline (the packing runs on the uploader
+// thread, beside the wire decode).
 // Little-endian byte order for 16/32 (matches numpy .view(uint8) on the
 // hosts these .so files are built on; asserted in the Python binding).
 // Tail groups (n not a multiple of the group size) pack as zero-padded.
@@ -2506,7 +2506,7 @@ extern "C" int uvt_pack_bits(const int32_t* v, int64_t n, int mode,
 // each frame's value array directly into its padded slot of the window's
 // upload buffer and zero-fills the padding — replacing the [F, nmax, nc]
 // int32 intermediate (zeroed, filled per frame, then re-read by the flat
-// packer) that ran on the uploader thread of a 1-core host. Byte-identical
+// packer) on the uploader thread. Byte-identical
 // to packing the zero-padded flat array because uvt_pack_bits zero-pads
 // tail groups and the pad values are zeros.
 //   vals:   F pointers to contiguous int32 value arrays

@@ -1,6 +1,6 @@
 // uvol-tpu native entropy hot loops (C ABI, ctypes-bound).
 //
-// The TPU owns the array math; these are the sequential host serialization
+// The device owns the array math; these are the sequential host serialization
 // loops that Python is too slow for at production frame rates:
 //   - Draco-format rANS symbol decode/encode (see uvol_tpu/codecs/rans.py,
 //     the bit-exact Python reference these mirror)

@@ -5,7 +5,7 @@ Equivalent of Corto's ZPoint sort used by its point-cloud path
 (x, y, z) are bit-interleaved and sorted so nearby points become neighbors
 in the stream, making successive-difference coding effective.
 
-Bit interleaving is pure integer VPU work; sorting uses XLA's batched sort.
+Bit interleaving is pure elementwise integer work; sorting uses XLA's batched sort.
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ Re-expresses the reference's two normal pipelines:
     (math follows the published Draco bitstream semantics: fold the
     lower hemisphere into the octahedron diamond, quantize (u,v)).
 
-Encode/decode are elementwise over vertices → pure VPU work, `vmap` over
+Encode/decode are elementwise over vertices → pure elementwise work, `vmap` over
 frames for sequence throughput.
 """
 

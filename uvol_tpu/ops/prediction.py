@@ -99,5 +99,5 @@ def delta_encode(values: Array) -> Array:
 
 
 def delta_decode(residuals: Array) -> Array:
-    """Inverse of `delta_encode` — a cumulative sum (fully parallel on TPU)."""
+    """Inverse of `delta_encode` — a cumulative sum (fully parallel on device)."""
     return jnp.cumsum(residuals, axis=-2, dtype=residuals.dtype)

@@ -1,6 +1,6 @@
 """Attribute quantization kernels (JAX, batched over frames).
 
-TPU-native re-expression of the reference's per-attribute quantizers:
+Batched re-expression of the reference's per-attribute quantizers:
   - Draco-style uniform range quantization driven by Q_POSITION_ATTR=11,
     Q_TEXTURE_ATTR=10, Q_NORMAL_ATTR=8, Q_GENERIC_ATTR=8
     (reference: scripts/Encoder.py:260-267 flags to draco_encoder)

@@ -2,9 +2,9 @@
 
 The reference's parallelism is worker pools over frames/segments
 (SURVEY.md §2.4: DRACOLoader pool ≤4 workers, Basis WorkerPool). The
-TPU-native equivalent is pure data parallelism over the frame axis of a
-`jax.sharding.Mesh`: frames ride ICI within a slice, DCN across slices,
-with collectives only for reductions (stats/codebooks).
+device equivalent is pure data parallelism over the frame axis of a
+`jax.sharding.Mesh`, with collectives only for reductions
+(stats/codebooks).
 """
 
 from __future__ import annotations
@@ -26,8 +26,8 @@ def initialize_distributed(
     process_id: Optional[int] = None,
 ) -> bool:
     """Multi-host bring-up: `jax.distributed.initialize` with env-var
-    fallbacks, so `make_mesh()` then spans every host's devices (frames
-    ride ICI within a slice and DCN across slices — SURVEY §2.4 / §5).
+    fallbacks, so `make_mesh()` then spans every host's devices
+    (SURVEY §2.4 / §5).
 
     Args fall back to JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
     JAX_PROCESS_ID (the standard launcher contract). Returns True when a
@@ -70,7 +70,7 @@ def mesh_is_multiprocess(mesh: Mesh) -> bool:
 def replicate_to_host(mesh: Mesh, tree):
     """Gather a pytree of mesh-sharded arrays to fully-replicated arrays.
 
-    One all-gather per leaf (rides ICI/DCN); afterwards every process can
+    One all-gather per leaf; afterwards every process can
     `np.asarray` the result. This is the multi-host analog of the
     reference's worker→main-thread transferable handoff
     (/root/reference/src/V1/worker.ts:69)."""

@@ -6,7 +6,7 @@ wall-clock sync, geometry/texture frame-rate reconciliation, array-texture
 layer indexing (`offset = frame % sequenceSize`, :446), buffer eviction and
 fail-material degradation (:435-444). Rendering is replaced by a
 `FrameResult` value the host app (or test) consumes; decode is pluggable —
-the defaults use the TPU decode paths.
+the defaults use the framework's decode paths.
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """Host→device streaming: ring-buffered uploads overlapping device compute.
 
-The TPU equivalent of the reference's zero-copy transferable handoff
+The device equivalent of the reference's zero-copy transferable handoff
 (src/V1/worker.ts:58-69, DRACOLoader.js:445-449 — ownership moves, no
 copies on the render thread): `jax.device_put` is asynchronous, so
 enqueueing the NEXT window's upload before consuming the current one
-overlaps PCIe/ICI transfer with device compute. The ring keeps a bounded
+overlaps the host-to-device transfer with device compute. The ring keeps a bounded
 number of windows resident (the V1/V2 players' buffer windows, expressed
 as device memory instead of browser heap).
 """

@@ -1,6 +1,6 @@
 """Host-side async fetch+decode service — the L5 "decode services" layer.
 
-TPU-native replacement for the reference's Web-Worker parallelism:
+Host-thread replacement for the reference's Web-Worker parallelism:
   - DRACOLoader's ≤4-worker least-loaded pool (src/lib/DRACOLoader.js:24,
     312-366) and its task cache keyed by buffer (:110-133)
   - the Basis WorkerPool's bitmask idle set + FIFO queue
